@@ -1,6 +1,8 @@
 """Motion estimation: batched full search vs brute-force golden."""
 import numpy as np
+import jax
 import jax.numpy as jnp
+import pytest
 
 from x265_mod_by_patman_tpu.ops.me import (
     full_search_batch, full_search_ref, subpel_refine_batch)
@@ -66,7 +68,7 @@ def test_subpel_refine_improves_or_keeps():
 
 def test_hme_seeded_full_search_finds_large_motion():
     """Seeded full search (center_x/center_y) reaches motion beyond the
-    unseeded window; pallas-interpret and XLA paths agree."""
+    unseeded window."""
     import numpy as np
     import jax.numpy as jnp
     from x265_mod_by_patman_tpu.ops.me import full_search_batch
@@ -80,6 +82,75 @@ def test_hme_seeded_full_search_finds_large_motion():
     cx = jnp.asarray([40], jnp.int32)
     mvx, mvy, cost = full_search_batch(
         jnp.asarray(ref), jnp.asarray(orig), x0, y0, z, z, 0, 16, 8,
-        use_pallas=False, center_x=cx, center_y=z)
+        center_x=cx, center_y=z)
     assert int(mvx[0]) == 160 and int(mvy[0]) == 0    # qpel
     assert int(cost[0]) == 0
+
+
+def test_mv_bits_integer_matches_float_golden():
+    """mv_bits takes the bit length in integers; it equals the float
+    ceil(log2(|v|+1)) golden for every component value an MV search
+    can produce (checked here past +-2^16 qpel)."""
+    from x265_mod_by_patman_tpu.ops.me import mv_bits
+    v = np.arange(-70000, 70001, dtype=np.int32)
+    w = v[::-1].copy()
+    got = np.asarray(mv_bits(jnp.asarray(v), jnp.asarray(w)))
+    assert np.array_equal(got, mv_bits_np(v, w))
+
+
+@pytest.mark.parametrize("hme", [False, True], ids=["plain", "hme"])
+@pytest.mark.parametrize("r", [4, 16, 32])
+@pytest.mark.parametrize("n", [8, 16, 32])
+def test_full_search_edges_and_centres_match_golden(n, r, hme):
+    """Full search == full_search_ref for blocks at every edge of a
+    plane smaller than the search window, with MV predictors and HME
+    centres that push the window far outside the plane."""
+    rng = np.random.default_rng(n * 100 + r)
+    h, w = 48, 80
+    base = rng.integers(0, 256, (h + 8, w + 8)).astype(np.int32)
+    ref = base[:h, :w]
+    cur = np.clip(base[3:3 + h, 5:5 + w]
+                  + rng.integers(-3, 4, (h, w)), 0, 255).astype(np.int32)
+    blocks = [(0, 0), (w - n, h - n), (w // 2, 8), (w - n // 2, h - 4)]
+    x0 = np.array([b[0] for b in blocks], np.int32)
+    y0 = np.array([b[1] for b in blocks], np.int32)
+    if hme:
+        cx = np.array([3, -70, 9, 2 * r + 40], np.int32)
+        cy = np.array([-2, 5, -60, 1], np.int32)
+    else:
+        cx = cy = np.zeros(len(blocks), np.int32)
+    pmx = np.array([0, 8, -12, 4], np.int32)
+    pmy = np.array([0, -4, 0, 16], np.int32)
+    lam = 4 * 256
+    mx, my, cost = full_search_batch(
+        jnp.asarray(ref), jnp.asarray(cur), jnp.asarray(x0),
+        jnp.asarray(y0), jnp.asarray(pmx), jnp.asarray(pmy), lam, n, r,
+        center_x=jnp.asarray(cx) if hme else None,
+        center_y=jnp.asarray(cy) if hme else None)
+    for i in range(len(blocks)):
+        want = full_search_ref(ref, cur, int(x0[i]), int(y0[i]),
+                               (int(pmx[i]), int(pmy[i])), lam, n, r,
+                               center=(int(cx[i]), int(cy[i])))
+        assert (int(mx[i]), int(my[i]), int(cost[i])) == want, i
+
+
+@pytest.mark.gpu
+def test_full_search_on_gpu_equals_cpu_backend(gpu_device):
+    """At 1080p block count (8160 16x16 blocks, r=16, HME centres) the
+    search compiled for the card returns exactly the CPU backend's MVs
+    and costs."""
+    rng = np.random.default_rng(4)
+    h, w, n, r = 1080, 1920, 16, 16
+    ref = rng.integers(0, 256, (h, w)).astype(np.int32)
+    cur = np.roll(ref, (2, -5), (0, 1))
+    bys, bxs = np.mgrid[0:-(-h // n), 0:w // n]
+    host = ((ref, cur, (bxs.ravel() * n).astype(np.int32),
+             (bys.ravel() * n).astype(np.int32))
+            + (rng.integers(-8, 9, bxs.size).astype(np.int32),) * 2)
+    outs = []
+    for dev in (gpu_device, jax.devices("cpu")[0]):
+        a, c, x, y, px, py = (jax.device_put(v, dev) for v in host)
+        outs.append([np.asarray(v) for v in full_search_batch(
+            a, c, x, y, px, py, 1024, n, r, center_x=px, center_y=py)])
+    for g, c in zip(*outs):
+        assert np.array_equal(g, c)

@@ -1,8 +1,6 @@
 """Multi-stream sharded encode on the virtual CPU mesh: identical
 bitstreams to independent single-stream encodes."""
 import numpy as np
-import jax
-import pytest
 
 from x265_mod_by_patman_tpu.params import default_params
 from x265_mod_by_patman_tpu.encoder.top import Encoder
@@ -10,11 +8,8 @@ from x265_mod_by_patman_tpu.parallel.streams import MultiStreamIntraEncoder
 from x265_mod_by_patman_tpu.decoder.decoder import Decoder
 from tests.test_e2e_intra import synth_frame
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices("cpu")) < 4, reason="needs virtual device mesh")
 
-
-def test_sharded_streams_match_single():
+def test_sharded_streams_match_single(virtual_mesh):
     w, h = 64, 64
     n = 4
     p = default_params(w, h, qp=32, keyframe_max=1, rd_level=2)

@@ -31,8 +31,7 @@ def test_sea_equals_full_search_at_k_all():
     pz = jnp.zeros_like(x0)
     lam = 64 * 256
     fx, fy, fc = full_search_batch(jnp.asarray(ref), jnp.asarray(orig),
-                                   x0, y0, pz, pz, lam, n, r,
-                                   use_pallas=False)
+                                   x0, y0, pz, pz, lam, n, r)
     sx, sy, sc = sea_search_batch(jnp.asarray(ref), jnp.asarray(orig),
                                   x0, y0, pz, pz, lam, n, r,
                                   k=(2 * r + 1) ** 2)
@@ -79,8 +78,7 @@ def test_sea_pruned_close_to_exact():
     pz = jnp.zeros_like(x0)
     lam = 64 * 256
     _, _, fc = full_search_batch(jnp.asarray(ref), jnp.asarray(orig),
-                                 x0, y0, pz, pz, lam, n, r,
-                                 use_pallas=False)
+                                 x0, y0, pz, pz, lam, n, r)
     fc = np.asarray(fc, np.float64)
     for k, want in ((32, 0.7), (96, 0.9)):
         _, _, sc = sea_search_batch(jnp.asarray(ref),

@@ -14,14 +14,12 @@ def test_trace_file_written(tmp_path):
 import numpy as np
 from x265_mod_by_patman_tpu.params import default_params
 from x265_mod_by_patman_tpu.encoder.top import Encoder
-import jax
-jax.config.update('jax_default_device', jax.devices('cpu')[0])
 enc = Encoder(default_params(64, 64, qp=32, keyframe_max=1))
 y = np.full((64, 64), 100, np.uint8)
 c = np.full((32, 32), 128, np.uint8)
 enc.encode_frame(y, c, c)
 """
-    env = dict(os.environ, X265TPU_TRACE=str(out),
+    env = dict(os.environ, X265TPU_TRACE=str(out), JAX_PLATFORMS="cpu",
                PYTHONPATH=os.getcwd() + ":" +
                os.environ.get("PYTHONPATH", ""))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

@@ -6,7 +6,7 @@ so every future round measures on byte-identical content (same seeds,
 same procedure — SURVEY §6 requires the sweep procedure to be
 reproducible, not a particular clip).
 
-Three profiles:
+Four profiles:
   park   — "real content" stand-in: multi-octave value-noise ground +
            smooth sky gradient, slow global pan with varying velocity,
            two moving occluders, mild static grain.  MC-friendly
@@ -14,6 +14,8 @@ Three profiles:
            decisions and residual rate models matter).
   nat    — static noise texture, no motion (intra-ish inter content).
   bench  — pan + per-frame re-randomized noise (MC-adversarial).
+  field  — smooth world + per-frame sensor grain (the 1080p-park
+           regime at any size); not in the default --clips set.
 
 Usage: python tools/make_clips.py [--frames 12] [--w 416 --h 240]
        [--out-dir /tmp]

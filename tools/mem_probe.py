@@ -1,6 +1,6 @@
-"""AOT HBM probe: compile the analysis cores at config-4 (4K) shapes
-and print XLA's memory analysis (argument/output/temp bytes) without
-executing — pinpoints which program blows the 16 GB HBM budget.
+"""AOT device-memory probe: compile the analysis cores at config-4 (4K)
+shapes and print XLA's memory analysis (argument/output/temp bytes)
+without executing — shows which program needs how much device memory.
 
 Usage: python tools/mem_probe.py [--w 3840 --h 2160] [--b]
 """

@@ -1,6 +1,6 @@
 """Batched intra mode decision.
 
-TPU-first inversion of the reference's per-CU sequential mode search
+Batched inversion of the reference's per-CU sequential mode search
 (x265 Search::estIntraPredQT search.cpp:1855, intra_pred_allangs
 primitive): ALL blocks of the frame evaluate ALL 35 modes in one batched
 pass, using ORIGINAL pixels as prediction references (decouples the

@@ -1,9 +1,9 @@
 """cuTree lookahead: lowres cost estimation + temporal propagation.
 
-TPU-native analog of the reference lookahead's cuTree (slicetype.cpp
+Batched analog of the reference lookahead's cuTree (slicetype.cpp
 cuTree:3649, estimateCUPropagate:3752, cuTreeFinish:4000) and its lowres
 cost model (lowresIntraEstimate:753, CostEstimateGroup).  Design changes
-for the TPU:
+for a device:
 
  - lowres costs are ONE batched device dispatch per frame (all blocks'
    35-mode intra SATD sweep + dense full-search ME vs the previous
@@ -91,7 +91,7 @@ class LowresStore:
             return
         # transient native-dtype upload — NOT dev_i32: caching the
         # full-res int32 source for every frame in the lookahead window
-        # would pin ~2 GB of HBM at 4K with --rc-lookahead 40 (the
+        # would pin ~2 GB of device memory at 4K with --rc-lookahead 40 (the
         # frame's device copy is created at encode time instead, when
         # analysis/wavefront/SAO actually share it)
         low = _lowres_dev(jnp.asarray(np.asarray(y_padded)))
@@ -164,8 +164,7 @@ def _intra_costs(low, avail, nby: int, nbx: int):
     return jnp.min(costs, axis=1).reshape(nby, nbx)
 
 
-def hme_seeds(low, prev, nby: int, nbx: int,
-              use_pallas: bool = False):
+def hme_seeds(low, prev, nby: int, nbx: int):
     """1/2-of-lowres (1/4 source) HME tier (x265 --hme, lowres.h:166
     HME planes): full search on the quarter planes, MVs upsampled as
     FULLPEL lowres window centers for the half-res search.  Extends the
@@ -181,7 +180,7 @@ def hme_seeds(low, prev, nby: int, nbx: int,
     zero = jnp.zeros_like(x0)
     mvx, mvy, _ = full_search_batch(qp, ql, x0, y0, zero, zero,
                                     LOOKAHEAD_LAMBDA_X256, N,
-                                    SEARCH_RANGE, use_pallas=use_pallas)
+                                    SEARCH_RANGE)
     sx = ((mvx >> 2) * 2).reshape(qnby, qnbx)
     sy = ((mvy >> 2) * 2).reshape(qnby, qnbx)
     up = lambda a: jnp.pad(
@@ -191,9 +190,8 @@ def hme_seeds(low, prev, nby: int, nbx: int,
     return up(sx).ravel(), up(sy).ravel()
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4, 5))
-def _inter_costs(low, prev, nby: int, nbx: int, hme: bool = False,
-                 use_pallas: bool = False):
+@partial(jax.jit, static_argnums=(2, 3, 4))
+def _inter_costs(low, prev, nby: int, nbx: int, hme: bool = False):
     """Integer full search vs the previous lowres + SATD at the best MV.
     Returns (satd_cost, mv_x, mv_y) with MVs in lowres fullpel units."""
     bys, bxs = jnp.mgrid[0:nby, 0:nbx]
@@ -202,12 +200,11 @@ def _inter_costs(low, prev, nby: int, nbx: int, hme: bool = False,
     zero = jnp.zeros_like(x0)
     cx = cy = None
     if hme:
-        cx, cy = hme_seeds(low, prev, nby, nbx, use_pallas=use_pallas)
+        cx, cy = hme_seeds(low, prev, nby, nbx)
     mvx, mvy, _ = full_search_batch(prev, low, x0, y0, zero, zero,
                                     LOOKAHEAD_LAMBDA_X256, N,
                                     SEARCH_RANGE,
-                                    center_x=cx, center_y=cy,
-                                    use_pallas=use_pallas)
+                                    center_x=cx, center_y=cy)
     fx, fy = mvx >> 2, mvy >> 2
     h, w = low.shape
     gy = jnp.clip(y0[:, None, None] + fy[:, None, None]
@@ -289,10 +286,8 @@ class CuTreeLookahead:
         """(inter, mvx, mvy) of e measured against ref (cached)."""
         got = e.costs.get(ref.disp)
         if got is None:
-            from ..ops.me import pallas_enabled
             c, fx, fy = _inter_costs(e.low, ref.low, self.nby,
-                                     self.nbx, self.hme,
-                                     pallas_enabled(e.low))
+                                     self.nbx, self.hme)
             for a in (c, fx, fy):      # one round trip, not three
                 a.copy_to_host_async()
             got = (np.asarray(c, dtype=np.float64),

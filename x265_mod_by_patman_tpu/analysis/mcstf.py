@@ -6,7 +6,7 @@ applied at frameencoder.cpp:666): periodically-strong source frames are
 denoised by blending motion-aligned neighbor SOURCES (+-2 frames) with
 per-block error-adaptive weights before any encoding happens.
 
-TPU-native shape: one dense batched full-search per (frame, neighbor)
+Batched shape: one dense batched full-search per (frame, neighbor)
 pair and one fused blend — no per-block jobs.  Deviations from the
 reference noted inline: integer-pel alignment (reference refines to
 qpel) and block-constant weights (reference adds per-pixel refinement);

@@ -2,7 +2,7 @@
 weightAnalyse:222): frame-level luma (weight, offset) fit per reference,
 enabled only when it measurably lowers the lowres SAD.
 
-TPU note: the fit is two moments over 1/8-res planes (host numpy); the
+Note: the fit is two moments over 1/8-res planes (host numpy); the
 exact spec weighting (8.5.4.3.2) is applied on the 14-bit interpolated
 prediction in the MC path (ops.interp.wp_apply_*), while ME runs on a
 pixel-domain pre-weighted reference (analysis-only approximation,

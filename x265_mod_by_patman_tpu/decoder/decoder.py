@@ -263,6 +263,7 @@ class DecodedPicture:
     sei_md5: Optional[bytes] = None
     cus: Optional[list] = None        # CodedCU list (analysis tooling)
     temporal_id: int = 0              # nuh_temporal_id (sub-layers)
+    slice_type: str = ""              # "I", "P" or "B" (last slice)
 
 
 class Decoder:
@@ -576,6 +577,7 @@ class Decoder:
                              v.astype(dt))
         pic.md5 = plane_md5(pic.y, pic.u, pic.v, bit_depth=sps.bit_depth)
         pic.cus = all_cus
+        pic.slice_type = "BPI"[slice_type]
         if is_idr(nal_type):
             self._dpb.clear()
             self._col_store.clear()

@@ -24,7 +24,7 @@ class BinIR:
     native call per slice/row (`finalize`, merge_residual_ir in
     native/entropy_kernels.c) interleaves all residual bins into the
     stream — removing the per-TU ctypes dispatch that dominated host
-    entropy time (the TPU analog of the reference coding whole CTU rows
+    entropy time (the batched analog of the reference coding whole CTU rows
     inside one Entropy pass, entropy.cpp encodeCTU)."""
 
     __slots__ = ("_bins", "_ctx", "n", "_tud", "_lev", "_lev_n",

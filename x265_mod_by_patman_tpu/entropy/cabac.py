@@ -3,7 +3,7 @@
 Design: unlike x265's single stateful Entropy class interleaving syntax and
 arithmetic (source/encoder/entropy.cpp:2861 encodeBin), this framework
 splits entropy coding in two phases so the expensive per-TU binarization
-can run vectorized/batched on TPU while only the tiny sequential
+can run vectorized/batched on the device while only the tiny sequential
 low/range recursion runs here:
 
   phase 1 (numpy/JAX, batchable): syntax -> "bin stream IR"

@@ -2,7 +2,7 @@
 "counting mode" rate model (reference entropy.h:107-133 EstBitsSbac,
 entropy.cpp sbacGetEntropyBits / estBit).
 
-TPU-first form: instead of a live stateful estimator threaded through a
+Batched form: instead of a live stateful estimator threaded through a
 serial coefficient walk, the slice-start context states for EVERY
 (init_type, qp) pair are baked into one dense table at import time;
 jitted code gathers per-context bit costs with the *traced* qp and

@@ -1,6 +1,6 @@
 """Batched intra reconstruction over CTU wavefronts.
 
-TPU-first replacement of the reference's sequential per-CTU intra coding
+Batched replacement of the reference's sequential per-CTU intra coding
 loop (x265 FrameEncoder::processRowEncoder frameencoder.cpp:1638 +
 Search::codeIntraLumaQT search.cpp:646): CTUs on a wavefront diagonal
 (d = cx + 2*cy, the WPP schedule) are processed as one batched step;
@@ -807,7 +807,7 @@ def _wavefront_run_multi(yp, up, vp, lev_y, lev_u, lev_v, oy, ou, ov,
     """Multi-frame wavefront: every per-frame arg carries a leading F
     axis; the schedule and QPs are shared.  All frames' wavefronts advance
     in lockstep — the multi-frame batching lever from SURVEY.md §7
-    ('need big CTU batches to fill the MXU at small resolutions')."""
+    ('need big CTU batches to fill the device at small resolutions')."""
     def fn(*args):
         return _wavefront_body(*args, init_type=init_type,
                                bit_depth=bit_depth,

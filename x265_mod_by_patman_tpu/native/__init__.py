@@ -1,8 +1,9 @@
 """Native (C) entropy kernels — build + ctypes bindings.
 
-Compiled lazily with the system compiler on first import (cached .so);
-falls back to the pure-Python implementations when unavailable so the
-framework stays importable everywhere.
+Compiled lazily with the system compiler on first use (cached .so).
+Without it (X265TPU_NO_NATIVE set, or a failed build, whose reason
+`build_error` keeps) the encoder falls back to the pure-Python
+implementations, which the CPU tests use as goldens.
 """
 from __future__ import annotations
 
@@ -20,9 +21,11 @@ _SRC = os.path.join(_HERE, "entropy_kernels.c")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+build_error: Optional[str] = None
 
 
 def _build() -> Optional[str]:
+    global build_error
     with open(_SRC, "rb") as f:
         tag = hashlib.md5(f.read()).hexdigest()[:12]
     so = os.path.join(tempfile.gettempdir(), f"x265tpu_entropy_{tag}.so")
@@ -35,7 +38,10 @@ def _build() -> Optional[str]:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(so + ".tmp", so)
         return so
-    except Exception:
+    except (OSError, subprocess.SubprocessError) as e:
+        err = getattr(e, "stderr", None)
+        build_error = f"{' '.join(cmd)}: {e}" + (
+            f"\n{err.decode(errors='replace')}" if err else "")
         return None
 
 

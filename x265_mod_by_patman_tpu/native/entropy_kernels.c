@@ -3,7 +3,7 @@
  *
  * The runtime analog of the reference's hand-optimized entropy hot path
  * (x265 source/encoder/entropy.cpp encodeBin/codeCoeffNxN + the
- * scanPosLast/costCoeffNxN asm primitives): the TPU framework keeps
+ * scanPosLast/costCoeffNxN asm primitives): the JAX framework keeps
  * analysis/recon on-chip, and this C layer removes the host-side Python
  * cost of phase-1 (syntax -> bins) and phase-2 (bins -> bytes).
  *

@@ -3,8 +3,8 @@
 Analog of the reference pixel-cost primitive families (x265 source/common/
 pixel.cpp sad/satd/sa8d/sse templates; primitives.h pu[].sad/satd,
 cu[].sa8d/sse_pp slots).  Batched-over-blocks JAX implementations; the
-Hadamard stages are expressed as matmuls so arbitrary batches map onto the
-MXU.  Scales match x265's conventions (satd/2, (sa8d+2)/4) so lambda
+Hadamard stages are expressed as integer matmuls over arbitrary batches.
+Scales match x265's conventions (satd/2, (sa8d+2)/4) so lambda
 tables carry over.
 """
 from __future__ import annotations

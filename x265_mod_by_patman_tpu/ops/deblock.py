@@ -2,7 +2,7 @@
 
 Analog of the reference's Deblock (x265 source/common/deblock.cpp:37
 deblockCTU, pelFilterLumaStrong/pelFilterChroma primitives), restructured
-TPU-first: instead of per-CTU sequential edge walks, ALL vertical edges of
+Batched: instead of per-CTU sequential edge walks, ALL vertical edges of
 the frame filter in one batched pass, then all horizontal edges (the spec
 already orders V-then-H frame-wide, and 8-px edge spacing means windows
 never overlap -> embarrassingly parallel).

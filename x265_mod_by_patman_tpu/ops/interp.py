@@ -2,11 +2,9 @@
 
 Analog of the reference's largest kernel family: 8-tap luma / 4-tap chroma
 interpolation (x265 source/common/ipfilter.cpp:518 C templates;
-ipfilter8.asm 14.9 KLoC).  TPU-native formulation: a filter along an axis
-is a dense (N, N+taps-1) x (taps) contraction over a gathered window —
-batched over blocks, it maps to MXU-friendly matmuls via the stacked-shift
-trick (windows materialized as (B, N, N, taps) and contracted with the
-tap vector).
+ipfilter8.asm 14.9 KLoC).  Batched formulation: a filter along an axis
+is a sum of taps shifted multiply-adds over a gathered (B, N+taps-1,
+N+taps-1) window, which XLA fuses with the gather that feeds it.
 
 Conventions (match the reference exactly for bit-exact recon):
   B = bit depth; shift1 = B-8; two-stage keeps 14-bit intermediates;
@@ -91,31 +89,11 @@ def mc_block_ref(ref: np.ndarray, x: int, y: int, mv_x: int, mv_y: int,
 # Batched JAX
 # ---------------------------------------------------------------------------
 
-def _on_tpu(a) -> bool:
-    try:
-        return next(iter(a.devices())).platform == "tpu"
-    except (AttributeError, TypeError):
-        return False
-
-
-def _gather_windows(ref, x0, y0, n: int, nt: int, use_pallas=None):
-    """(B,) block origins -> (B, n+nt-1, n+nt-1) clamped windows.
-
-    On TPU the read runs as a pallas DMA kernel over an edge-padded
-    plane (XLA's general-gather lowering of this access dominated P/B
-    analysis); elsewhere it is the clamped XLA gather.  Both produce
-    identical samples for every |MV| within the pad margin."""
-    import os
+def _gather_windows(ref, x0, y0, n: int, nt: int):
+    """(B,) block origins -> (B, n+nt-1, n+nt-1) windows with clamped
+    (edge-replicated) coordinates."""
     ph, pw = ref.shape
     half = nt // 2 - 1
-    if use_pallas is None:
-        ov = os.environ.get("X265TPU_PALLAS")
-        use_pallas = ov != "0" and (ov == "1" or _on_tpu(ref))
-    if use_pallas:
-        from .pallas.gather import MARGIN, pad_plane, window_gather
-        refp = pad_plane(ref)
-        return window_gather(refp, y0 - half + MARGIN,
-                             x0 - half + MARGIN, n + nt - 1)
     dy = jnp.arange(n + nt - 1)[None, :, None]
     dx = jnp.arange(n + nt - 1)[None, None, :]
     ys = jnp.clip(y0[:, None, None] - half + dy, 0, ph - 1)
@@ -136,16 +114,14 @@ def _filt1d(win, taps, axis: int):
     return acc
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("n", "c_idx", "bit_depth",
-                                    "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("n", "c_idx", "bit_depth"))
 def mc_batch(ref, x0, y0, mv_x, mv_y, n: int, c_idx: int = 0,
-             bit_depth: int = 8, use_pallas=None):
+             bit_depth: int = 8):
     """Batched MC: (B,) origins + (B,) MVs -> (B, n, n) predictions.
 
     MVs in quarter-pel (luma) / eighth-pel (chroma) units.  All 4
     (frac_x!=0, frac_y!=0) cases are computed branch-free and selected
-    per block (the TPU way: compute the superset, mask the result).
+    per block (compute the superset, mask the result).
     """
     taps_np = (LUMA_FILTER if c_idx == 0 else CHROMA_FILTER).astype(np.int32)
     nt = LUMA_TAPS if c_idx == 0 else CHROMA_TAPS
@@ -158,7 +134,7 @@ def mc_batch(ref, x0, y0, mv_x, mv_y, n: int, c_idx: int = 0,
     fy = mv_y & ((1 << fb) - 1)
     ix = x0 + (mv_x >> fb)
     iy = y0 + (mv_y >> fb)
-    win = _gather_windows(ref, ix, iy, n, nt, use_pallas)
+    win = _gather_windows(ref, ix, iy, n, nt)
     return _mc_core(win, fx, fy, n, nt, taps_np, bit_depth)
 
 
@@ -213,11 +189,9 @@ def _mc_core(win, fx, fy, n: int, nt: int, taps_np, bit_depth: int):
     return out
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("n", "c_idx", "bit_depth",
-                                    "use_pallas"))
+@functools.partial(jax.jit, static_argnames=("n", "c_idx", "bit_depth"))
 def mc_batch_14(ref, x0, y0, mv_x, mv_y, n: int, c_idx: int = 0,
-                bit_depth: int = 8, use_pallas=None):
+                bit_depth: int = 8):
     """Batched MC keeping the 14-bit intermediate (spec predSamplesLX),
     for bi-prediction combining (8.5.4.3: bi output = (L0 + L1 +
     offset2) >> (15 - B))."""
@@ -231,7 +205,7 @@ def mc_batch_14(ref, x0, y0, mv_x, mv_y, n: int, c_idx: int = 0,
     fy = mv_y & ((1 << fb) - 1)
     ix = x0 + (mv_x >> fb)
     iy = y0 + (mv_y >> fb)
-    win = _gather_windows(ref, ix, iy, n, nt, use_pallas)
+    win = _gather_windows(ref, ix, iy, n, nt)
     taps = jnp.asarray(taps_np)
     tx = taps[fx]
     ty = taps[fy]

@@ -1,11 +1,11 @@
 """Intra prediction: 35 HEVC modes (spec 8.4.4.2).
 
-TPU-native analog of the reference's intra_pred[35] / intra_pred_allangs
+Batched analog of the reference's intra_pred[35] / intra_pred_allangs
 kernel family (x265 source/common/intrapred.cpp:31-270 C kernels;
 common/x86/intrapred8_allangs.asm).  Instead of 35 scalar kernels, the
 batched path computes ALL modes for a batch of blocks with two gathers and
 one fused multiply-add over precomputed (mode, size) index/weight tables —
-the natural allangs formulation for the VPU/MXU.
+the natural allangs formulation for a wide device.
 
 Canonical neighbor layout used everywhere ("S vector", length 4N+1):
     S[0 .. 2N-1]   = left column bottom-up:  S[k] = p[-1][2N-1-k]

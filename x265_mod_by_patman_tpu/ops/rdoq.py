@@ -1,4 +1,4 @@
-"""Rate-distortion optimized quantization, batched for the TPU.
+"""Rate-distortion optimized quantization, batched for the device.
 
 Analog of the reference RDOQ (common/quant.cpp rdoQuant:610 and the
 nonPsyRdoQuant primitives, dct.cpp:988): instead of the reference's

@@ -2,7 +2,7 @@
 
 Analog of the reference's SAO (x265 source/encoder/sao.cpp: stats
 calcSaoStatsCTU:729, RDO rdoSaoUnitCu:1214, apply applyPixelOffsets:268;
-saoCuOrgE0..B0 primitives), restructured TPU-first: SAO reads the
+saoCuOrgE0..B0 primitives), restructured batch-first: SAO reads the
 deblocked picture and writes an independent output, so classification,
 per-CTU statistics, and offset application are all whole-frame batched
 tensor ops; only the tiny per-CTU type decision runs on host.

@@ -7,7 +7,7 @@ exact SADs are computed only for promising candidates (x265
 `pu[].ads` slots, common/x86/seaintegral.asm integral_initv/inith,
 motion.cpp:923 X265_SEA method).
 
-TPU-native form: the bound is computed DENSELY for all (2r+1)^2
+Batched form: the bound is computed DENSELY for all (2r+1)^2
 candidates (four integral gathers + abs-diff — one fused elementwise
 pass), then `jax.lax.top_k` selects the K best lower bounds per block
 and exact SAD runs only on those K windows.  Pruning is arithmetic

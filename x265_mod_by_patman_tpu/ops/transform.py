@@ -1,6 +1,6 @@
 """Forward/inverse transforms and (de)quantization.
 
-TPU-native analog of the reference kernel families dct/idct/dst/quant/
+Batched analog of the reference kernel families dct/idct/dst/quant/
 dequant (x265 source/common/dct.cpp:418-614 partial butterflies,
 source/common/quant.cpp quant/dequant; table registry primitives.h
 cu[].dct/idct/quant slots).
@@ -9,12 +9,12 @@ Two implementations of each op:
   *_ref  — numpy golden, scalar-faithful to the spec's integer arithmetic
            (the "C kernel" of the checkasm strategy, SURVEY.md §4.1)
   jax fns — batched over a leading axis of blocks, same bit-exact integer
-           math in int32, shaped for MXU matmuls (batch, N, N) x (N, N).
+           math in int32, shaped as matmuls (batch, N, N) x (N, N).
 
 All transforms are expressed as two rounded integer matmuls instead of the
-reference's butterfly factorization: on TPU the MXU makes the full matmul
-the fast path; butterflies are a scalar-ISA optimization we deliberately
-do not port.
+reference's butterfly factorization: on a wide device the full matmul
+is the fast path; butterflies are a scalar-ISA optimization we
+deliberately do not port.
 """
 from __future__ import annotations
 
@@ -116,7 +116,7 @@ def _jr(x, shift):
 def dct_batch(resi: jnp.ndarray, log2n: int, bit_depth: int = 8,
               dst: bool = False) -> jnp.ndarray:
     """(B, N, N) int residual -> (B, N, N) int32 coeffs, bit-exact to
-    dct_ref.  Two MXU matmuls with integer rounding."""
+    dct_ref.  Two integer matmuls with integer rounding."""
     t = jnp.asarray((DST4 if dst else dct_matrix(log2n)).astype(np.int32))
     s1 = log2n - 9 + bit_depth
     s2 = log2n + 6
@@ -155,7 +155,7 @@ def quant_batch(coef: jnp.ndarray, qp: int, log2_size: int,
     scale = int(QUANT_SCALES[rem])
     c = coef.astype(jnp.int32)
     # abs(coef)<2^15 and scale<2^15 so the product fits int32; the rounding
-    # bias add < 2^27 keeps the sum in range (no int64 needed on TPU)
+    # bias add < 2^27 keeps the sum in range (no int64 needed)
     level = jnp.clip((jnp.abs(c) * scale + add) >> qbits, 0, 32767)
     return (jnp.sign(c) * level).astype(jnp.int32)
 

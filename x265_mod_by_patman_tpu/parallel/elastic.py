@@ -2,7 +2,7 @@
 
 The reference is an in-process library whose only failure handling is
 the m_aborted fatal latch (encoder.h:239) and the CLI Ctrl-C flush
-(abrEncApp.cpp:1175).  A pod-scale TPU deployment needs more (SURVEY
+(abrEncApp.cpp:1175).  A multi-host deployment needs more (SURVEY
 §5): workers (hosts/slices) can be preempted mid-segment, so the unit
 of recovery is the closed-GOP chunk — idempotent, order-independent,
 and re-dispatchable to any surviving worker.

@@ -4,7 +4,7 @@ The declared multi-chip north star (SURVEY.md §2.3 P1/P2 mapping): a
 frame's analysis is sharded over a 1-D device mesh by CTU block rows.
 Each device holds its band of the original + reference planes; the
 reference-pixel halo a band needs (search range + interp margin) is
-exchanged over ICI with `ppermute` — the collective analog of the
+exchanged between devices with `ppermute` — the collective analog of the
 reference encoder's frame-parallel recon-row lag handshake
 (x265 frameencoder.h:213 m_refLagRows, doc/reST/threading.rst:124-215).
 
@@ -66,8 +66,6 @@ def analyse_p_frame_tiles(y, u, v, refs, sps, qp: int,
     block-rows; padded rows' decisions are discarded.  Pixel values any
     in-band read can touch are identical to the whole-frame call, so
     the outputs are bit-identical to analyse_p_frame."""
-    from jax.experimental.shard_map import shard_map
-
     if mesh is None:
         mesh = make_mesh(n_devices, axis="rows")
     axis = mesh.axis_names[0]
@@ -156,18 +154,18 @@ def analyse_p_frame_tiles(y, u, v, refs, sps, qp: int,
                        avail_b.reshape(-1, avail_b.shape[-1]), lam_b,
                        jnp.int32(qp),
                        wpat, search_range, block, bd,
-                       sps.log2_ctu_size, False, subme, rect_eff,
+                       sps.log2_ctu_size, subme, rect_eff,
                        False, band,
                        tmvp=tmvp_b if has_tmvp else None)
 
     rows = P(axis)
     # check_rep off: fori_loop carries inside the ME kernels start as
     # replicated zeros and become device-varying (VMA check artifact)
-    fn = jax.jit(shard_map(
+    fn = jax.jit(jax.shard_map(
         kernel, mesh=mesh,
         in_specs=(rows, P(None, axis), P(None, axis), P(None, axis),
                   rows, P(), (rows, rows, rows)),
-        out_specs=(rows,) * 9, check_rep=False))
+        out_specs=(rows,) * 9, check_vma=False))
     out = fn(oy, rys, rus, rvs, avail, lam256, tmvp_in)
     modes, inter, mvs, rsel, mcy, mcu, mcv, part, mvs_b = \
         [np.asarray(o)[:nby] for o in out]

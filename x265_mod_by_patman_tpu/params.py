@@ -1,6 +1,6 @@
 """Encoder parameter system.
 
-TPU-native analog of x265's single ~300-field `x265_param` + string parser +
+Analog of x265's single ~300-field `x265_param` + string parser +
 preset system (reference: source/x265.h:1092-2393, source/common/param.cpp:
 461 x265_param_default_preset, :1519 x265_param_parse, :1701
 x265_check_params).  Same layered resolution order: defaults -> preset ->
@@ -154,7 +154,7 @@ class EncoderParams:
     profile: str = "main"
     level_idc: int = 0              # 0 = auto
 
-    # parallel layout (TPU).  Stream- and GOP-level parallelism have no
+    # parallel layout (devices).  Stream- and GOP-level parallelism have no
     # param knobs: they are driven directly by parallel.streams.
     # MultiStreamEncoder / parallel.ladder / encode_chunked arguments.
     mesh_tile_rows: int = 1         # CTU tile-row shards per frame
@@ -271,8 +271,8 @@ class EncoderParams:
 
     def apply_preset(self, preset: str) -> "EncoderParams":
         """Speed/quality trade-off ladder (x265 param.cpp:461).  Values
-        chosen for the TPU pipeline: batching changes which tools are cheap
-        (mode breadth is near-free; sequential dependencies are not)."""
+        chosen for the batched pipeline: batching changes which tools are
+        cheap (mode breadth is near-free; sequential dependencies are not)."""
         if preset not in PRESETS:
             raise ValueError(f"unknown preset {preset!r}")
         i = PRESETS.index(preset)

@@ -3,9 +3,9 @@
 Analog of the reference's swscale-derived Scaler (common/scaler.cpp
 ScalerFilterManager, driven by the ABR-ladder app's Scaler thread,
 abrEncApp.cpp:1034): separable polyphase resampling with a bicubic
-kernel, fixed-point 14-bit coefficients, batched as two matmuls — on
-TPU a resample IS a pair of (H_out x H_in) / (W_in x W_out) matrix
-multiplies, which is exactly what the MXU wants.
+kernel, fixed-point 14-bit coefficients, batched as two matmuls — a
+resample IS a pair of (H_out x H_in) / (W_in x W_out) matrix
+multiplies.
 """
 from __future__ import annotations
 
